@@ -1,4 +1,4 @@
-"""Batched factor families — the TPU-native replacement for bs_constraints
+"""Batched factor families — the batched replacement for bs_constraints
 (Ceres cost functors, SURVEY.md §2.3) and ``fuse_core::Constraint``.
 
 Each family is a fixed-capacity structure-of-arrays pytree: ``F`` factor slots
@@ -21,7 +21,7 @@ from typing import Any, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from beam_slam_tpu.core import struct
 
 from beam_slam_tpu.core import lie
 from beam_slam_tpu.ops import smallmat as sm
@@ -108,7 +108,7 @@ class FactorBatch(struct.PyTreeNode):
     active: jnp.ndarray
 
     # Plain class attributes (NOT annotated — annotations would turn them into
-    # dataclass fields under flax.struct's dataclass transform).
+    # dataclass fields under core.struct's dataclass transform).
     BLOCKS = ()  # type: Tuple[str, ...]
     RESIDUAL_DIM = 0
     # Local tangent columns the residual can actually depend on (None = all).
@@ -118,8 +118,8 @@ class FactorBatch(struct.PyTreeNode):
     # the remaining Jacobian columns are structural zeros and are re-expanded
     # with one tiny constant matmul after differentiation. Cuts the
     # forward-mode tangent fan-out of the hot visual families by ~40-50%
-    # (the per-factor residual math is small-op VPU work — the solver's
-    # dominant cost on TPU, see docs/PROFILE.md).
+    # (the per-factor residual math is small elementwise work, a large
+    # share of each linearization).
     USED_COLS = None  # type: Optional[Tuple[int, ...]]
     # Subclasses with a closed-form Jacobian set this and implement
     # ``residual_and_jacobian_used`` (residual + Jacobian over USED_COLS).
@@ -398,7 +398,7 @@ class ImuPriorFactors(FactorBatch):
 class RelativePoseFactors(FactorBatch):
     """6-dof relative-pose factor between baselink states i and j, with the
     measurement expressed in a (shared, optimizable) sensor frame via an
-    extrinsic block — the TPU equivalent of bs_constraints/relative_pose/
+    extrinsic block — the batched equivalent of bs_constraints/relative_pose/
     delta_pose_3d_with_extrinsics_cost_functor.h:19-109 (used by lidar
     odometry and submap refinement).
 
@@ -535,7 +535,7 @@ class MarginalPriorFactors(FactorBatch):
 
 class ConstantVelocityFactors(FactorBatch):
     """9-dof constant-velocity kinematic factor between consecutive states —
-    the TPU counterpart of the Unicycle3D motion model's kinematic constraint
+    the batched counterpart of the Unicycle3D motion model's kinematic constraint
     (bs_constraints/motion/unicycle_3d_state_cost_functor.h:127 /
     unicycle_3d_predict.h). The reference predicts with separate angular-
     velocity and linear-acceleration states; our 15-dof IMU states carry
@@ -638,8 +638,8 @@ def _pinhole_project(X_c, intr, pixel, A):
     matches jnp.maximum's JVP convention (zero once clamped).
 
     All products go through ops.smallmat (elementwise broadcast-mul-reduce):
-    a per-factor [2,2]@[2,3] under vmap is a batched dot that XLA pads to
-    MXU tiles — measured at GBs of pure padding traffic per assembly."""
+    a per-factor [2,2]@[2,3] under vmap is a batched dot of tiny tiles;
+    elementwise math fuses with the surrounding factor code instead."""
     z_raw = X_c[2]
     z = jnp.maximum(z_raw, 1e-3)
     u = intr[0] * X_c[0] / z + intr[2]

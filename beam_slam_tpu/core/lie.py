@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group math, backend-dual over numpy and JAX.
 
-TPU-native re-implementation of the subset of ``beam_utils/se3.h`` /
+Re-implementation of the subset of ``beam_utils/se3.h`` /
 ``beam_utils/math.h`` that beam_slam uses (see reference usage in
 bs_common/src/bs_common/preintegrator.cpp:35-52 — ``beam::LieAlgebraToR``,
 ``beam::RightJacobianOfSO3``, ``beam::SkewTransform`` — and
@@ -11,9 +11,8 @@ under jit/vmap/grad — tracers are ``jax.Array`` instances) run the jnp
 path and stay fully jit/vmap/grad-safe; plain numpy/python inputs run
 the numpy path *eagerly on the host*. The host pipeline (transaction
 building, odometry bookkeeping, seeds) calls these on tiny arrays
-thousands of times per second — routing those through the device was
-~600 eager dispatches per scan and, on a remote-TPU backend, a round
-trip each (the round-3 TPU-session profile's dominant cost).
+thousands of times per second — routing those through the device would
+be ~600 eager dispatches per scan, each costing far more than its math.
 
 Conventions:
   * Quaternions are stored ``[w, x, y, z]`` (Hamilton, active rotation),

@@ -1,4 +1,4 @@
-"""Fixed-shape sliding-window state — the TPU-native replacement for the
+"""Fixed-shape sliding-window state — the static-shape replacement for the
 fuse variable store (``fuse_core::Graph`` / ``fuse_graphs::HashGraph``) and the
 custom variables in bs_variables (see SURVEY.md §1 L1/§2.2).
 
@@ -19,7 +19,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import jax.numpy as jnp
-from flax import struct
+from beam_slam_tpu.core import struct
 
 from beam_slam_tpu.core import lie
 

@@ -1,6 +1,6 @@
 """ScanContext descriptors for loop-closure candidate search.
 
-TPU-native replacement for libbeam's ``beam_matching/Scancontext.h`` as used
+JAX replacement for libbeam's ``beam_matching/Scancontext.h`` as used
 by reloc::RelocCandidateSearchScanContext
 (bs_models/src/lib/reloc/reloc_candidate_search_scan_context.cpp): a polar
 max-height histogram per scan; similarity = min over yaw (column) shifts of
@@ -9,7 +9,7 @@ pre-filtering.
 
 Everything is batched: descriptor construction is one scatter-max, database
 search evaluates all (candidate × shift) pairs as a single einsum — the
-'batched cosine distance, trivially TPU' design of SURVEY.md §7.8.
+batched-cosine-distance design of SURVEY.md §7.8.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Per-point scan deskewing (motion compensation).
 
-TPU-native replacement for the reference's LidarScanDeskewer plugin
+JAX replacement for the reference's LidarScanDeskewer plugin
 (bs_models/src/lidar_scan_deskewer.cpp:13-62): every point is re-expressed in
 the scan-start frame using the pose interpolated at its own timestamp (the
 reference queries a FrameInitializer per point; here the whole grid is

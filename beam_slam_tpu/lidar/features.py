@@ -1,6 +1,6 @@
 """LOAM feature extraction as a batched XLA kernel.
 
-TPU-native replacement for libbeam's ``LoamFeatureExtractor`` (used by the
+JAX replacement for libbeam's ``LoamFeatureExtractor`` (used by the
 reference at bs_models/src/lidar_odometry.cpp:362-386 via ScanPose, and
 bs_models/src/lib/lidar/lidar_path_init.cpp): ring-wise curvature over the
 azimuth-sorted grid, per-sector selection of sharp edge points and flat

@@ -9,7 +9,7 @@ the scan, plus a large box with ``remove_outside_points: true`` to bound
 range), and beam_filtering additionally provides VOXEL downsampling and DROR
 radius-outlier removal.
 
-TPU-native formulation: filters never resize — they clear ``valid`` bits on
+Static-shape formulation: filters never resize — they clear ``valid`` bits on
 the fixed-shape :class:`~beam_slam_tpu.lidar.cloud.RingGrid` (static shapes;
 the feature extractor and matchers already honor the mask).
 """

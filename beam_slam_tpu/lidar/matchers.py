@@ -5,8 +5,8 @@ The reference's MultiScanRegistration supports matcher variants ICP / GICP /
 NDT / LOAM through libbeam's ``beam_matching::Matchers.h``
 (multi_scan_registration.h:18-139). The LOAM matcher lives in
 :mod:`beam_slam_tpu.lidar.registration`; this module provides the
-non-feature-based variants with the same TPU-native recipe: brute-force
-correspondence via MXU distance matmuls, batched closed-form fits, fixed GN
+non-feature-based variants with the same recipe: brute-force
+correspondence over dense distance matrices, batched closed-form fits, fixed GN
 iterations with masked weights.
 """
 
@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from beam_slam_tpu.core import lie
+from beam_slam_tpu.ops.knn import knn_topk
 
 
 class MatcherConfig(NamedTuple):
@@ -37,12 +38,6 @@ class MatchResult(NamedTuple):
     mean_residual: jnp.ndarray
     n_inliers: jnp.ndarray
     converged: jnp.ndarray
-
-
-def _knn(query, ref, ref_valid, k):
-    from beam_slam_tpu.ops.pallas_knn import knn_topk
-    idx, d = knn_topk(query, ref, ref_valid, k)
-    return idx, d
 
 
 def _gn_register(src, src_valid, residual_geom_fn, q0, p0,
@@ -106,7 +101,7 @@ def icp_point_to_point(src, src_valid, tgt, tgt_valid, q0, p0,
     """Classic ICP: nearest-target-point distance residuals (3 per point)."""
 
     def geom(world, valid):
-        idx, d2 = _knn(world, tgt, tgt_valid, 1)
+        idx, d2 = knn_topk(world, tgt, tgt_valid, 1)
         nn = tgt[idx[:, 0]]
         w = (valid & (d2[:, 0] < cfg.max_corr_dist ** 2)
              & jnp.isfinite(d2[:, 0])).astype(world.dtype)
@@ -127,7 +122,7 @@ def ndt_voxel_gaussian(src, src_valid, tgt, tgt_valid, q0, p0,
     (mean + covariance); each source point is scored by the Mahalanobis
     distance to its voxel's distribution.
 
-    TPU-native formulation: a dense static voxel grid (scatter-add moments,
+    Static-shape formulation: a dense static voxel grid (scatter-add moments,
     batched 3×3 whitening factors) with point→cell gathers — no hash maps,
     no data-dependent shapes.
     """
@@ -183,7 +178,7 @@ def gicp_point_to_plane(src, src_valid, tgt, tgt_valid, q0, p0,
     surface normal (plane fit over k neighbors)."""
 
     def geom(world, valid):
-        idx, d2 = _knn(world, tgt, tgt_valid, cfg.k_normal)
+        idx, d2 = knn_topk(world, tgt, tgt_valid, cfg.k_normal)
         nb = tgt[idx]                              # [N, k, 3]
         centroid = jnp.mean(nb, axis=1)
         X = nb - centroid[:, None, :]

@@ -1,15 +1,16 @@
 """LOAM scan-to-map registration as a fixed-iteration batched GN kernel.
 
-TPU-native replacement for libbeam's ``LoamMatcher`` as driven by the
+Replacement for libbeam's ``LoamMatcher`` as driven by the
 reference's ScanToMapLoamRegistration (bs_models/src/lib/scan_registration/
 scan_to_map_registration.cpp) and MultiScanLoamRegistration
 (multi_scan_registration.cpp): point-to-line residuals on edge features and
 point-to-plane residuals on surface features against a feature map, solved by
 Gauss-Newton on the 6-dof pose.
 
-Design for TPU (SURVEY.md §7.5):
+Design (SURVEY.md §7.5):
   * correspondence search is brute-force k-NN via a dense distance matrix
-    (‖a‖² + ‖b‖² − 2a·bᵀ — an MXU matmul) with masking, instead of kd-trees;
+    (‖a‖² + ‖b‖² − 2a·bᵀ — one matmul, ops/knn.py) with masking, instead of
+    kd-trees;
   * line/plane fits are closed-form per-correspondence batched ops (power
     iteration for the principal direction, small least-squares for normals);
   * the GN loop is a fixed number of iterations with masked inlier weights —
@@ -27,6 +28,7 @@ import jax.numpy as jnp
 
 from beam_slam_tpu.core import lie
 from beam_slam_tpu.lidar.cloud import FeatureCloud
+from beam_slam_tpu.ops.knn import knn_topk
 
 
 class LoamRegistrationConfig(NamedTuple):
@@ -76,14 +78,13 @@ class LoamRegistrationConfig(NamedTuple):
     max_rot_step: float = 0.1
     max_trans_step: float = 0.5
     # correspondence search mode: "knn" (gather top-k + neighbor fits) or
-    # "radius" (fixed-radius neighborhood MOMENTS via masked matmuls —
-    # ~4x faster on the MXU, see _radius_moments). Measured on the synthetic
-    # VLP-16 scene (round 3): radius converges (0.6 cm from cm-level seeds
-    # with the gates below) but kNN is ~6x more accurate and has a wider
-    # convergence basin — fixed-radius balls cannot adapt to ring-spacing
-    # anisotropy, so ~10% of fits mix structures. kNN stays the default;
-    # radius is the right mode for DENSE maps (e.g. aggregated submaps)
-    # where its locality matches the data and its matmul form wins.
+    # "radius" (fixed-radius neighborhood MOMENTS via masked matmuls, see
+    # _radius_moments). Measured on the synthetic VLP-16 scene: radius
+    # converges (0.6 cm from cm-level seeds with the gates below) but kNN is
+    # ~6x more accurate and has a wider convergence basin — fixed-radius
+    # balls cannot adapt to ring-spacing anisotropy, so ~10% of fits mix
+    # structures. kNN stays the default; radius is the mode for DENSE maps
+    # (e.g. aggregated submaps) where its locality matches the data.
     corr_mode: str = "knn"
     edge_radius: float = 0.35
     surf_radius: float = 0.3
@@ -102,21 +103,12 @@ class RegistrationResult(NamedTuple):
     converged: jnp.ndarray     # [] bool (enough inliers & finite solve)
 
 
-def _knn(query: jnp.ndarray, q_valid, ref: jnp.ndarray, ref_valid, k: int):
-    """Brute-force k-NN: returns (idx [Nq,k], dist2 [Nq,k]). Invalid refs are
-    pushed to +inf distance. Dispatches through ops.pallas_knn (XLA
-    matmul+top_k by default; the fused Pallas kernel via
-    BEAM_SLAM_KNN_BACKEND=pallas)."""
-    from beam_slam_tpu.ops.pallas_knn import knn_topk
-    return knn_topk(query, ref, ref_valid, k)
-
-
 def _edge_residuals(pts_map, pts_valid, map_edges, map_valid,
                     cfg: LoamRegistrationConfig):
     """Fit a line to the k-NN of each (map-frame) scan edge point; return the
     correspondence geometry (centroid, direction, weight) — held fixed for
     the GN step that follows (classic ICP-style alternation)."""
-    idx, d2 = _knn(pts_map, pts_valid, map_edges, map_valid, cfg.k_edge)
+    idx, d2 = knn_topk(pts_map, map_edges, map_valid, cfg.k_edge)
     nb = map_edges[idx]                              # [N, k, 3]
     nb_ok = map_valid[idx] & jnp.isfinite(d2)
     centroid = jnp.mean(nb, axis=1)
@@ -152,12 +144,12 @@ def _plane_residuals(pts_map, pts_valid, map_surfs, map_valid,
 
     The normal comes from the *centered* neighbor scatter (smallest
     principal direction = cross of the two largest, via power iteration +
-    deflation — all fusible VPU math). The A-LOAM ``n·x + 1 = 0``
+    deflation — all fusible elementwise math). The A-LOAM ``n·x + 1 = 0``
     least-squares form solves Σ x xᵀ, whose condition number grows like
     (range / patch size)² — catastrophically ill-conditioned in f32 for
     far-away patches; the centered scatter is invariant to the patch's
     distance from the origin."""
-    idx, d2 = _knn(pts_map, pts_valid, map_surfs, map_valid, cfg.k_surf)
+    idx, d2 = knn_topk(pts_map, map_surfs, map_valid, cfg.k_surf)
     nb = map_surfs[idx]                              # [N, k, 3]
     nb_ok = map_valid[idx] & jnp.isfinite(d2)
     centroid = jnp.mean(nb, axis=1)
@@ -205,30 +197,16 @@ def _plane_residuals(pts_map, pts_valid, map_surfs, map_valid,
 
 def _radius_moments(query, ref, ref_valid, rad: float, chunk: int = 512):
     """Zeroth/first/second moments of each query's fixed-radius neighborhood
-    — the TPU-native correspondence search.
+    (the radius-mode correspondence search).
 
-    Backends: the blocked-matmul XLA form below is the DEFAULT — it is the
-    measured winner (the fused Pallas attempt in ops/pallas_moments.py
-    clocks ~1.9x SLOWER at registration shapes: 6.2 vs 3.3 ms; its
-    docstring has the numbers). BEAM_SLAM_MOMENTS_BACKEND=pallas opts into
-    the Pallas kernel for A/B runs only.
-
-    Instead of gather-based k-NN (sort + irregular HBM gathers), accumulate
+    Instead of gather-based k-NN (sort + irregular gathers), accumulate
       n  = Σ_r [d²(q,r) < rad²]            (count)
       m1 = Σ_r w·r                          (sum)
       m2 = Σ_r w·(r rᵀ)                     (scatter, 9 cols)
-    via W @ [1, r, rr9] where the [chunk, R] mask block lives only in
-    registers/VMEM — three MXU matmuls per block, no top-k, no gather.
-    Line/plane fits need exactly these moments (centroid + scatter), so the
-    k-NN neighbor SET is never materialized. ~4× faster than the
-    approx_max_k + gather + fit pipeline at registration shapes (0.22 ms vs
-    0.86 ms for the surf stage on one v5e chip).
+    as W @ [1, r, rr9] over [chunk, R] mask blocks — matmuls only, no
+    top-k, no gather. Line/plane fits need exactly these moments (centroid +
+    scatter), so the neighbor SET is never materialized.
     """
-    import os
-    if (os.environ.get("BEAM_SLAM_MOMENTS_BACKEND", "xla") == "pallas"
-            and jax.default_backend() == "tpu"):
-        from beam_slam_tpu.ops.pallas_moments import radius_moments
-        return radius_moments(query, ref, ref_valid, float(rad))
     R3 = jnp.where(ref_valid[:, None], ref, jnp.asarray(1e5, ref.dtype))
     r_sq = jnp.sum(R3 * R3, axis=1)
     outer9 = (R3[:, :, None] * R3[:, None, :]).reshape(-1, 9)

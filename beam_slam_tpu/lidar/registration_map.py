@@ -116,7 +116,7 @@ class RegistrationMap:
         s = self._next
         self._next = (self._next + 1) % self.map_size
         # one batched pull for all 8 feature arrays (per-array np.asarray on
-        # device buffers is a round trip each on remote backends)
+        # device buffers is a blocking transfer each)
         (es, ew, esv, ewv, ss, sw, ssv, swv) = jax.device_get(
             (features.edge_strong, features.edge_weak,
              features.edge_strong_valid, features.edge_weak_valid,

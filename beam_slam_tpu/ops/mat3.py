@@ -4,7 +4,7 @@ XLA lowers ``jnp.linalg.inv``/``jnp.linalg.solve`` on batched small matrices
 to a LU-factorization custom call — an unfusible kernel launch that
 serializes against the surrounding elementwise work. For the 3x3 SPD blocks
 that dominate this framework (Schur landmark blocks, LOAM plane fits,
-GICP covariances) the cofactor/adjugate form is pure VPU math that XLA
+GICP covariances) the cofactor/adjugate form is pure elementwise math that XLA
 fuses into the surrounding computation. Callers must damp/floor their
 blocks away from singularity (the adjugate divides by det).
 """

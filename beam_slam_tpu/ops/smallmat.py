@@ -1,16 +1,14 @@
-"""Elementwise small-matrix products — the TPU tiny-matmul antidote.
+"""Elementwise small-matrix products for tiny per-factor contractions.
 
-A per-factor ``[2,3] @ [3,3]`` under ``vmap`` lowers to a *batched dot*: XLA
-pads every operand to MXU tiles (8×128 lanes), so 65k factors × a 3×3 product
-reads/writes ~4.5 GB of padding (measured via cost_analysis on the flagship
-LVIO assembly — the whole assembly was 30 GB of HBM traffic for 0.6 GFLOP of
-real work, i.e. bandwidth-bound by PADDING). Writing the same contractions as
-broadcast-multiply-reduce keeps them elementwise: XLA fuses them into
-neighboring VPU code with zero padded tiles and zero extra HBM round trips.
+A per-factor ``[2,3] @ [3,3]`` under ``vmap`` lowers to a *batched dot* of
+65k tiny matrix products, each its own padded tile of a matrix-product
+kernel. Writing the same contractions as broadcast-multiply-reduce keeps
+them elementwise: XLA fuses them into the neighboring factor code with no
+padding and no extra round trips through device memory.
 
 Use these for any contraction whose contracted dimension is tiny (≤ ~16) and
 whose batch dimension is huge (per-factor / per-point math). For genuinely
-large contractions keep ``@`` / einsum — that's what the MXU is for.
+large contractions keep ``@`` / einsum.
 """
 
 from __future__ import annotations

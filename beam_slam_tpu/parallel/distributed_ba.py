@@ -11,15 +11,15 @@ problem:
     vmap + one-hot/matmul assembly of solver/gauss_newton.py, unchanged);
   * the local normal-equation pieces (H, g, per-landmark H_ll, g_l, the
     pose-landmark coupling W, and the robustified cost) are ``psum``-reduced
-    over the mesh axis — one all-reduce per LM iteration riding the ICI
+    over the mesh axis — one all-reduce per LM iteration over NVLink
     (~3.5 MB at the flagship window size);
   * the damped Schur-complement solve, retraction, and accept/reject run
     replicated on every device (the reduced system is small: D ≈ 613 dofs),
     reusing :func:`gauss_newton.lm_loop` with a psum-wrapped assembly.
 
-This is the TPU mapping of "Ceres threads" scaled past one chip
-(SURVEY.md §2.7: intra-solve parallelism → XLA inside a chip, psum-sharded
-reduced camera system across chips; reference solve:
+This is the multi-device mapping of "Ceres threads" scaled past one card
+(SURVEY.md §2.7: intra-solve parallelism → XLA inside a card, psum-sharded
+reduced camera system across cards; reference solve:
 bs_optimizers/src/fixed_lag_smoother.cpp:281 + lvio.yaml num_threads).
 
 Agreement with the single-device solve is exact up to float reduction

@@ -14,7 +14,7 @@ and the submap PGO — partitioned over a ``jax.sharding.Mesh``:
     contribution to the GLOBAL normal equations (dense rows via one-hot
     slot→column einsums — the same matmul-only assembly as the single-chip
     solver);
-  * one ``lax.psum`` over ICI reduces H, g, and the cost — the coupled
+  * one ``lax.psum`` over the mesh reduces H, g, and the cost — the coupled
     global system — after which every shard runs the identical damped solve
     and retraction (replicated, no further communication);
   * the LM accept/reject loop runs entirely inside one ``shard_map`` call —
@@ -209,8 +209,8 @@ def _lm_loop(state: PGOState, factors: PGOFactors, priors: PGOPriors,
              n_iter: int, axes=AXIS):
     """Runs INSIDE shard_map: factors/priors are this shard's slice, state
     is replicated. One psum of (H, g, cost) per iteration. ``axes`` may be
-    a tuple (hybrid DCN×ICI mesh): XLA lowers the psum hierarchically —
-    reduce within the fast ICI axis first, then once across DCN."""
+    a tuple (hybrid hosts × shards mesh): the psum then runs over both
+    axes — within each host's NVLink-joined devices and across hosts."""
     N = state.q.shape[0]
     free_dof = jnp.repeat(state.free, POSE_DOF)
 
@@ -295,11 +295,11 @@ def solve_distributed(mesh: Mesh, state: PGOState, factors: PGOFactors,
 def solve_distributed_hybrid(mesh: Mesh, state: PGOState,
                              factors: PGOFactors, priors: PGOPriors,
                              n_iter: int = 20):
-    """Coupled distributed LM over a 2D (DCN-host × ICI-chip) mesh — the
+    """Coupled distributed LM over a 2D (host × device) mesh — the
     multi-host tier (:mod:`beam_slam_tpu.parallel.multihost` builds the
     mesh and the locality-preserving factor order). Factors are sharded
-    over BOTH axes; the per-iteration global reduction happens
-    hierarchically (ICI inside a host, one DCN hop across hosts)."""
+    over BOTH axes; the per-iteration global reduction runs over both
+    (NVLink inside a host, the host network across hosts)."""
     axes = tuple(mesh.axis_names)
     n_shards = int(np.prod(list(mesh.shape.values())))
     factors = pad_factors(factors, n_shards)

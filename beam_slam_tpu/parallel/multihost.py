@@ -1,26 +1,26 @@
-"""Multi-host (DCN) deployment tier.
+"""Multi-host deployment tier.
 
 SURVEY.md §7.8's scale story: submaps (contiguous keyframe ranges) are
-distributed across *hosts* over DCN, while each host fans factor
-linearization out over its local chips' ICI. Three pieces:
+distributed across *hosts* over the host network, while each host fans
+factor linearization out over its local GPUs, joined all to all by NVLink.
+Three pieces:
 
 * :func:`initialize_from_env` — ``jax.distributed.initialize`` wiring for a
   real multi-process launch (coordinator address / process id from the
   standard env vars). A no-op in single-process runs, so the same binary
   serves laptop tests and pod deployment.
 * :func:`make_hybrid_mesh` — a 2D ``Mesh`` with axes ``("hosts",
-  "shards")``: the slow DCN axis × the fast ICI axis. In a real multi-host
-  run the host axis follows process boundaries
-  (``mesh_utils.create_hybrid_device_mesh``); single-process (tests, the
-  driver's virtual-CPU dry run) it simulates the topology by folding the
+  "shards")``: the slow host-network axis × the fast NVLink axis. In a real
+  multi-host run each row holds one process's devices; single-process
+  (tests, the virtual-CPU dry run) it simulates the topology by folding the
   local devices.
 * :func:`order_factors_by_owner` — the locality-preserving factor
   permutation: each host owns a contiguous keyframe range, factors live on
   the host owning their first endpoint. Odometry-chain factors thus never
-  cross DCN during assembly; loop closures are the only cross-host edges,
+  cross hosts during assembly; loop closures are the only cross-host edges,
   and they need no special casing (the global state is replicated — only
-  the normal-equation reduction is collective, hierarchical: ICI first,
-  one [D,D] DCN hop per LM iteration).
+  the normal-equation reduction is collective: one [D,D] all-reduce per LM
+  iteration).
 
 The solve itself is :func:`beam_slam_tpu.parallel.distributed_pgo.
 solve_distributed_hybrid`.
@@ -39,7 +39,7 @@ from jax.sharding import Mesh
 from beam_slam_tpu.parallel import distributed_pgo as dpgo
 
 HOST_AXIS = "hosts"
-ICI_AXIS = dpgo.AXIS  # "shards"
+SHARD_AXIS = dpgo.AXIS  # "shards"
 
 
 def initialize_from_env() -> bool:
@@ -66,29 +66,18 @@ def make_hybrid_mesh(n_hosts: Optional[int] = None,
                      devices_per_host: Optional[int] = None) -> Mesh:
     """2D ``("hosts", "shards")`` mesh.
 
-    Real multi-process runtime: one row per process over DCN
-    (``mesh_utils.create_hybrid_device_mesh`` keeps each row's devices on
-    one host so the inner axis rides ICI). Single process: fold the local
-    device list into [n_hosts, devices_per_host] — a faithful simulation
-    for the CPU-mesh tests and the driver's virtual-device dry run."""
+    Real multi-process runtime: one row per process, so each row's devices
+    live on one host and the inner axis stays on NVLink. Single process:
+    fold the local device list into [n_hosts, devices_per_host] — a
+    faithful simulation for the CPU-mesh tests and the virtual-device dry
+    run."""
     devs = jax.devices()
     if jax.process_count() > 1:
-        from jax.experimental import mesh_utils
         per = devices_per_host or jax.local_device_count()
         hosts = n_hosts or jax.process_count()
-        try:
-            arr = mesh_utils.create_hybrid_device_mesh(
-                mesh_shape=(1, per), dcn_mesh_shape=(hosts, 1), devices=devs)
-        except ValueError:
-            # No slice topology (e.g. multi-process CPU, single-slice pods):
-            # group rows by owning process — each row's devices still live
-            # on one host, which is all the hosts×shards split needs.
-            # (Found by the 2-process localhost run, tools/run_multihost_pgo
-            # .py: create_hybrid_device_mesh requires num_slices ==
-            # prod(dcn_mesh_shape) and CPU backends report one slice.)
-            by_proc = sorted(devs, key=lambda d: (d.process_index, d.id))
-            arr = np.asarray(by_proc[:hosts * per]).reshape(hosts, per)
-        return Mesh(arr, (HOST_AXIS, ICI_AXIS))
+        by_proc = sorted(devs, key=lambda d: (d.process_index, d.id))
+        arr = np.asarray(by_proc[:hosts * per]).reshape(hosts, per)
+        return Mesh(arr, (HOST_AXIS, SHARD_AXIS))
     if n_hosts is None:
         n_hosts = 2 if len(devs) >= 2 else 1
     if devices_per_host is None:
@@ -97,7 +86,7 @@ def make_hybrid_mesh(n_hosts: Optional[int] = None,
     if n > len(devs):
         raise ValueError(f"need {n} devices, have {len(devs)}")
     arr = np.asarray(devs[:n]).reshape(n_hosts, devices_per_host)
-    return Mesh(arr, (HOST_AXIS, ICI_AXIS))
+    return Mesh(arr, (HOST_AXIS, SHARD_AXIS))
 
 
 def keyframe_ranges(n_poses: int, n_hosts: int) -> Sequence[Tuple[int, int]]:
@@ -124,7 +113,7 @@ def order_factors_by_owner(factors: dpgo.PGOFactors, n_poses: int,
     factors are balanced: each host's overflow beyond its fair share
     spills to the globally emptiest host (state is replicated, so a
     spilled factor is still correct, just assembled off-owner; the spill
-    only costs DCN locality for the few factors past the imbalance)."""
+    only costs host locality for the few factors past the imbalance)."""
     i_host = np.asarray(factors.i)
     owner = owner_of(i_host, n_poses, n_hosts)
     owner = np.where(np.asarray(factors.active), owner, n_hosts - 1)

@@ -1,13 +1,14 @@
 """Multi-chip parallelism: submap-sharded batched window solves.
 
 The reference is a single-host ROS system (SURVEY.md §2.7); its only
-"distribution" is the local-mapper/global-mapper process split. The TPU-native
-scaling story (SURVEY.md §7.8) shards *submaps* across devices of a
+"distribution" is the local-mapper/global-mapper process split. The
+scaling story here (SURVEY.md §7.8) shards *submaps* across devices of a
 ``jax.sharding.Mesh``: each device owns a batch of independent sliding-window
 problems (submap refinement is embarrassingly parallel per submap —
 global_map_refinement.h:37-144), solves them with the same batched LM used by
 the online smoother, and global quantities (total cost, shared-extrinsic
-normal equations) are reduced over ICI with ``psum``-style collectives.
+normal equations) are reduced across devices with ``psum``-style
+collectives.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def solve_batched(windows, families, losses, options: gn.SolverOptions):
 @functools.partial(jax.jit, static_argnums=(2, 3))
 def global_cost(windows, families, losses, mesh_axis: Optional[str] = None):
     """Total robustified cost over all submaps. Under shard_map this becomes
-    a psum over ICI; under jit+sharded inputs XLA inserts the collective."""
+    a psum over the mesh; under jit+sharded inputs XLA inserts the
+    collective."""
     costs = jax.vmap(lambda w, f: gn.total_cost(w, f, losses))(
         windows, families)
     return jnp.sum(costs)

@@ -4,7 +4,7 @@ component #71: every fuse AsyncSensorModel runs its callback queue on its
 own spinner thread, and the fixed-lag smoother solves on a dedicated
 optimizer thread, fixed_lag_smoother.cpp:166-311).
 
-TPU-native shape of the same design:
+Shape of the same design here:
 
 * one ``queue.Queue`` + daemon spinner thread per sensor stream (imu /
   lidar / camera / pose). Heavy per-scan device work (feature extraction,

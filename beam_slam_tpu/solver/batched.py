@@ -1,11 +1,9 @@
 """Shared-topology batched LM solve — the submap-refinement throughput path.
 
-``parallel/sharded.solve_batched`` (plain vmap of the single-window solve)
-gave ZERO batch scaling on TPU (round-3 bench: B=1→32 both ~75 windows/s).
-Profiling (tools/profile_batched.py / profile_assembly.py) localized the
-flatline: under vmap every per-factor gather and one-hot Gram scatter lowers
-to a *batch-looped* small op — 32 windows cost 32 × the latency-bound time of
-one, and the MXU never sees a big matmul.
+``parallel/sharded.solve_batched`` is the plain vmap of the single-window
+solve. Under vmap every per-factor gather and one-hot Gram scatter lowers to
+a *batch-looped* small op, so 32 windows can cost 32 × the latency-bound
+time of one and no large matmul ever forms.
 
 This module exploits what the submap-refinement workload actually has
 (bs_models/src/lib/global_mapping/submap_refinement.cpp:24-162 — B
@@ -18,8 +16,8 @@ one-hot matrix with the batch dim folded into the GEMM's N dimension:
   * Hessian region scatter: [C₁·C₂, x] @ [x, B·d₁·d₂]
   * pose-landmark coupling: [C·L, x] @ [x, B·d·3]
 
-— all large MXU matmuls instead of B loops of tiny ones. The residual /
-Jacobian math itself is elementwise VPU work that vmaps fine and reuses the
+— all large matmuls instead of B loops of tiny ones. The residual /
+Jacobian math itself is elementwise work that vmaps fine and reuses the
 exact per-factor functions of :mod:`beam_slam_tpu.core.factors` (so the
 factor math cannot diverge from the reference-parity implementations).
 
@@ -32,7 +30,6 @@ the generic vmapped solve.
 from __future__ import annotations
 
 import functools
-import os
 from typing import Optional, Sequence, Tuple
 
 import jax
@@ -304,7 +301,7 @@ def _family_contrib(fam_b, window_b, loss, tmpl, dims):
             # fused pair INDEX (slot·L + lm) — one one_hot instead of the
             # outer product of two (the outer product materialized an
             # [n·F, C, L] intermediate). The GEMM [C·L, n·F] @ [n·F, B·d·3]
-            # scatters every coupling block in one MXU pass.
+            # scatters every coupling block in one matmul.
             slot_flat = _slots(kind).T.reshape(-1)           # [n·F]
             lm_flat = jnp.tile(lm_slot, (n,))                # [n·F]
             pair = jax.nn.one_hot(slot_flat * L + lm_flat, C * L,
@@ -337,11 +334,10 @@ def assemble_shared(
 
     ``f_chunk`` > 0 chunks families with more than ``f_chunk`` factors on
     the FACTOR axis (lax.scan with region accumulators): the per-factor
-    Gram/coupling intermediates ([B,F,Dl,Dl] etc.) stay VMEM-sized at any
+    Gram/coupling intermediates ([B,F,Dl,Dl] etc.) stay chunk-sized at any
     batch size while every scatter GEMM keeps the full B in its N
-    dimension. This fixes the round-4 B=32 cliff (13 ms/assembly from
-    HBM spill) without serializing the batch the way batch-chunking
-    (assemble_shared_chunked) did."""
+    dimension, without serializing the batch the way batch-chunking
+    (assemble_shared_chunked) does."""
     D = window_b.imu.q.shape[1] * IMU_DOF \
         + window_b.extrinsics.q.shape[1] * POSE_DOF \
         + window_b.motion.w.shape[1] * MOTION_DOF
@@ -448,10 +444,8 @@ def assemble_shared_chunked(window_b: WindowState, families_b, losses,
                             chunk: int = 8):
     """assemble_shared over BATCH chunks of ``chunk`` via lax.map.
 
-    Keeps every intermediate in the B=8 fused-VMEM regime; the chunks run
-    sequentially but each at the fast rate. Round-5 measured this ~2x
-    faster at B>=32 than both the un-chunked pass and factor-axis chunking
-    (see solve_batched_shared docstring), so it is the default assembly."""
+    Keeps every intermediate at chunk size; the chunks run sequentially.
+    It is the default assembly of solve_batched_shared."""
     B = window_b.imu.q.shape[0]
     if chunk >= B or B % chunk != 0:
         return assemble_shared(window_b, families_b, losses)
@@ -474,7 +468,7 @@ def assemble_shared_chunked(window_b: WindowState, families_b, losses,
 
 
 def lm_loop_batched(window_b: WindowState, assemble, n_iter,
-                    options: gn.SolverOptions, chol_backend=None):
+                    options: gn.SolverOptions):
     """Batched LM: per-window damping / accept / convergence latch. Mirrors
     gn.lm_loop with [B]-shaped scalars."""
     B = window_b.imu.q.shape[0]
@@ -490,8 +484,7 @@ def lm_loop_batched(window_b: WindowState, assemble, n_iter,
         win, (H, g, H_ll, g_l, W), lam, cost, done, iters, attempt = carry
         active = ~done & (attempt < n_iter)
         delta, delta_l, ok = gn.solve_damped_batched(
-            H, g, free, lam, H_ll, g_l, W, lm_free,
-            backend=chol_backend)
+            H, g, free, lam, H_ll, g_l, W, lm_free)
         trial = jax.vmap(
             lambda w, d, dl: w.retract_dense(d[:-1]).replace(
                 landmarks=w.landmarks.retract(dl)))(win, delta, delta_l)
@@ -532,10 +525,10 @@ def lm_loop_batched(window_b: WindowState, assemble, n_iter,
     return window_b, diag
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 5, 6, 7))
+@functools.partial(jax.jit, static_argnums=(2, 3, 5, 6))
 def _solve_shared_impl(window_b, families_b, losses,
                        options: gn.SolverOptions, n_iter, asm_chunk: int,
-                       f_chunk: int, chol_backend):
+                       f_chunk: int):
     if asm_chunk:
         assemble = lambda w: assemble_shared_chunked(  # noqa: E731
             w, families_b, losses, chunk=asm_chunk)
@@ -543,44 +536,25 @@ def _solve_shared_impl(window_b, families_b, losses,
         templates = tuple(_first(f) for f in families_b)
         assemble = lambda w: assemble_shared(          # noqa: E731
             w, families_b, losses, templates=templates, f_chunk=f_chunk)
-    return lm_loop_batched(window_b, assemble, n_iter, options,
-                           chol_backend=chol_backend)
+    return lm_loop_batched(window_b, assemble, n_iter, options)
 
 
 def solve_batched_shared(window_b: WindowState, families_b,
                          losses: Tuple[Optional[float], ...],
                          options: gn.SolverOptions = gn.SolverOptions(),
                          check: bool = False, asm_chunk: int = 8,
-                         f_chunk: int = 0, chol_backend=None):
+                         f_chunk: int = 0):
     """Batched LM over B same-topology windows. ``check=True`` validates the
     shared-topology contract on host (requires concrete arrays).
 
-    Assembly variants, MEASURED on TPU v5e (round-5 /tmp/asm_bench:
-    one assembly, flagship window, B=8/32/64):
-
-    ===========  ======  ======  ======
-    variant        B=8    B=32    B=64
-    ===========  ======  ======  ======
-    whole          4.44   16.88   27.06
-    f_chunk=256    4.33   15.67   23.78
-    asm_chunk=8    4.22    8.47   14.03
-    ===========  ======  ======  ======
-
-    Factor-axis chunking (``f_chunk``) keeps the full batch in every
-    scatter GEMM but barely beats the un-chunked pass — the B=32 cliff is
-    the overall fusion regime, not the per-factor Gram alone. Batch
-    chunking (``asm_chunk=8``, lax.map over B-chunks) keeps every
-    intermediate in the B=8 fused regime and wins ~2x at B>=32 despite
-    serializing chunks, so it stays the default."""
+    Assembly variants: ``asm_chunk`` (default 8) assembles the batch in
+    chunks of that many windows under ``lax.map``, keeping every
+    intermediate at chunk size; ``asm_chunk=0`` assembles the whole batch
+    at once, optionally chunked along the factor axis (``f_chunk``)."""
     if check:
         assert_shared_topology(families_b)
     sl = options.scan_length or options.max_iterations
     n_iter = jnp.asarray(min(options.max_iterations, sl), jnp.int32)
     static = options._replace(max_iterations=0, scan_length=sl)
-    if chol_backend is None:
-        # resolved OUTSIDE jit: the choice is a static compile-time switch
-        chol_backend = os.environ.get("BEAM_SLAM_CHOL_BACKEND", "") or (
-            "pallas" if jax.default_backend() == "tpu"
-            and window_b.imu.q.shape[0] >= 8 else "xla")
     return _solve_shared_impl(window_b, families_b, losses, static, n_iter,
-                              asm_chunk, f_chunk, chol_backend)
+                              asm_chunk, f_chunk)

@@ -1,7 +1,7 @@
 """Batched Levenberg–Marquardt over the fixed-shape window state, with
 Schur-complement elimination of landmarks.
 
-This is the TPU-native replacement for the Ceres solve inside
+This is the batched replacement for the Ceres solve inside
 ``fuse_graphs::HashGraph::optimize`` (driven by the reference fixed-lag
 smoother, bs_optimizers/src/fixed_lag_smoother.cpp:281 with
 SPARSE_NORMAL_CHOLESKY, ≤10-40 iterations, ≤0.05 s — lvio.yaml:7-17).
@@ -13,7 +13,7 @@ Design (SURVEY.md §7.2):
     (K·15 IMU dof + E·6 extrinsic dof) with scatter-adds. Landmark blocks
     (visual BA) are **Schur-eliminated on chip**: per-landmark 3×3 diagonal
     blocks H_ll, the pose-landmark coupling W, and the reduced camera system
-    H_red = H_pp − W·H_ll⁻¹·Wᵀ — one MXU matmul — then dense Cholesky on the
+    H_red = H_pp − W·H_ll⁻¹·Wᵀ — one matmul — then dense Cholesky on the
     reduced system and closed-form landmark back-substitution.
   * Jacobi equilibration makes the reduced system ~unit-diagonal so float32
     Cholesky is accurate (validated against f64 oracles in tests).
@@ -29,7 +29,6 @@ of H (and W / H_ll for landmarks) and pinning those dof to zero update.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import jax
@@ -37,7 +36,7 @@ import jax.numpy as jnp
 
 from beam_slam_tpu.core.window import LANDMARK_DOF, WindowState
 # Closed-form cofactor inverse of batched 3x3 SPD blocks: pure elementwise
-# VPU math that XLA fuses into the surrounding Schur computation — replaces
+# math that XLA fuses into the surrounding Schur computation — replaces
 # the batched LU custom-call of jnp.linalg.inv (a kernel launch + unfusible
 # op per LM iteration). The damped blocks are floored well away from
 # singularity (see _solve_damped), so the adjugate form is safe.
@@ -49,9 +48,9 @@ _DIAG_EPS = 1e-12
 
 def _gram(J: jnp.ndarray) -> jnp.ndarray:
     """Per-factor JᵀJ ([..., R, D] → [..., D, D]). For tiny residual dims the
-    batched-dot lowering pads every factor's [D,R]@[R,D] to MXU tiles (GBs of
-    pure padding traffic on the visual families — see ops/smallmat.py);
-    broadcast-mul-reduce keeps it elementwise. Larger R goes to the MXU."""
+    batched-dot lowering makes every factor's [D,R]@[R,D] its own padded
+    matmul tile (see ops/smallmat.py); broadcast-mul-reduce keeps it
+    elementwise. Larger R stays a matmul."""
     if J.shape[-2] <= 4:
         return _sm.gram_r(J)
     return jnp.einsum("...ri,...rj->...ij", J, J)
@@ -97,12 +96,11 @@ class SolverOptions(NamedTuple):
     # function_tolerance, never past max_iterations).
     early_exit: bool = False
     # Normal-equation assembly kernel: "scatter" (per-factor scatter-adds;
-    # best at small scale / XLA:CPU), "dense" (one-hot expansion to dense
-    # Jacobian rows + one JᵀJ MXU matmul), "blocks" (local Gram blocks +
-    # region one-hot matmuls — the TPU path: no dense-row layout copies),
-    # or "auto" (blocks on tpu-like backends, scatter on cpu). All produce
-    # identical normal equations (tests/test_solver.py asserts agreement).
-    assembly: str = "auto"
+    # the fastest on the CPU and on the GPU), "dense" (one-hot expansion to
+    # dense Jacobian rows + one JᵀJ matmul) or "blocks" (local Gram blocks +
+    # region one-hot matmuls, no dense rows). All produce identical normal
+    # equations (tests/test_solver.py asserts agreement).
+    assembly: str = "scatter"
 
 
 class SolveDiagnostics(NamedTuple):
@@ -179,10 +177,10 @@ def assemble_normal_equations_dense(
     families: Sequence,
     losses: Tuple[Optional[float], ...],
 ):
-    """Matmul-only assembly — the TPU path.
+    """Matmul-only assembly.
 
     Each factor's local Jacobian blocks are expanded to a dense row over the
-    window's full dof via one-hot slot→column einsums (pure MXU work, no
+    window's full dof via one-hot slot→column einsums (matmuls only, no
     scatters), all families' rows are stacked into one Jacobian J_all
     [N_rows, D+1] (plus a landmark-column matrix Jlm_all [N_rows, L·3]), and
     the normal equations come from single large matmuls:
@@ -290,21 +288,19 @@ def assemble_normal_equations_blocks(
     families: Sequence,
     losses: Tuple[Optional[float], ...],
 ):
-    """Block-wise matmul assembly — the fastest TPU path.
+    """Block-wise matmul assembly.
 
     The ``dense`` path expands every factor's local Jacobian to a dense row
-    over the full window dof (``frd,fk->frkd`` one-hot einsums). On TPU the
-    expanded [F, R, K·15] tensors force layout copies + reshapes before the
-    JᵀJ matmul — profiled at ~190 µs/LM-iteration of pure data movement on
-    the flagship LVIO window (docs/PROFILE.md). This path never materializes
-    dense Jacobian rows:
+    over the full window dof (``frd,fk->frkd`` one-hot einsums), whose
+    [F, R, K·15] tensors cost layout copies + reshapes before the JᵀJ
+    matmul. This path never materializes dense Jacobian rows:
 
       * per family, one batched matmul forms the local Gram blocks
         P[f] = J_fᵀ J_f  [F, Dl, Dl] and q[f] = J_fᵀ r_f;
       * contributions scatter into per-region accumulators
         (imu×imu [K,15,K,15], imu×ext [K,15,E,6], …) via *small* one-hot
         matmuls: slot one-hots [F, K] for single-block diagonals, slot-pair
-        one-hots [F·n₁·n₂, K₁·K₂] for cross-block terms — all MXU work on
+        one-hots [F·n₁·n₂, K₁·K₂] for cross-block terms — all matmuls on
         tensors ~100× smaller than the dense rows;
       * the dense H is assembled from the regions with static slice writes.
 
@@ -472,14 +468,9 @@ def assemble_normal_equations_blocks(
     return H, g, H_ll, g_l, W, cost
 
 
-def _resolve_assembly(mode: str) -> str:
-    if mode != "auto":
-        return mode
-    return "scatter" if jax.default_backend() == "cpu" else "blocks"
-
-
 def _assemble(window, families, losses, mode: str):
-    mode = _resolve_assembly(mode)
+    # Flagship window, 10-iteration solve on an NVIDIA H100 80GB HBM3 at a
+    # 400 W power limit: scatter 7.39 ms, dense 11.40 ms, blocks 13.01 ms.
     if mode == "dense":
         return assemble_normal_equations_dense(window, families, losses)
     if mode == "blocks":
@@ -488,7 +479,7 @@ def _assemble(window, families, losses, mode: str):
 
 
 # jitted assembly entry point for host callers (e.g. exact marginalization) —
-# eager per-op dispatch is pathologically slow on remote-TPU backends
+# one dispatch instead of one per eager op
 assemble_normal_equations_jit = functools.partial(
     jax.jit, static_argnums=(2,))(assemble_normal_equations)
 
@@ -505,12 +496,14 @@ def total_cost(window: WindowState, families: Sequence,
     return cost
 
 
+def _solve_damped(H, g, free, lam, H_ll, g_l, W, lm_free):
+    """Schur-reduced damped solve.
 
-
-def _damped_reduced_system(H, g, free, lam, H_ll, g_l, W, lm_free):
-    """Phase A of the Schur-reduced damped solve: mask, landmark Schur
-    complement, Jacobi scaling, damping, 128-padding. Returns the padded
-    SPD system (Hp, gp) plus the back-substitution context."""
+    Dense part: (S·H_red·S + λI) y = S·g_red with Jacobi scaling S — the
+    float32-conditioning workhorse (SURVEY.md §7 'Double precision' risk).
+    Landmarks: per-slot 3×3 inverses of (H_ll + λ·diag(H_ll)), masked by
+    ``lm_free``; back-substituted after the reduced solve.
+    """
     dtype = H.dtype
     Dp = H.shape[0]
     L = H_ll.shape[0]
@@ -534,7 +527,7 @@ def _damped_reduced_system(H, g, free, lam, H_ll, g_l, W, lm_free):
     g_l = g_l * lmf[:, None]
     Hll_inv = _inv3x3(Hll_d)
 
-    # reduced camera system: H_red = H - W·Hll⁻¹·Wᵀ (MXU work)
+    # reduced camera system: H_red = H - W·Hll⁻¹·Wᵀ
     Wr = W.reshape(Dp, L, 3)
     Y = jnp.einsum("dlk,lkm->dlm", Wr, Hll_inv)
     H_red = Hm - jnp.einsum("dlm,elm->de", Y, Wr)
@@ -545,26 +538,18 @@ def _damped_reduced_system(H, g, free, lam, H_ll, g_l, W, lm_free):
     Hs = H_red * (s[:, None] * s[None, :])
     Hs = Hs + lam * jnp.eye(Dp, dtype=dtype)
     gs = g_red * s
-    # Pad the reduced system to the next 128 multiple: the TPU blocked
-    # Cholesky/triangular-solve kernels tile in 128 panels, and a ragged
-    # trailing panel serializes their last block column. Padding rows are an
-    # identity block (decoupled unit equations), so the leading Dp entries of
-    # the padded solution equal the unpadded one exactly.
+    # Pad the reduced system to the next multiple of 128 with an identity
+    # block (decoupled unit equations): the leading Dp entries of the padded
+    # solution equal the unpadded one exactly, and every window capacity
+    # near a multiple of 128 shares one factorization shape.
     pad = (-Dp) % 128
     if pad:
-        Hp = jnp.zeros((Dp + pad, Dp + pad), dtype)
-        Hp = Hp.at[:Dp, :Dp].set(Hs)
-        Hp = Hp.at[jnp.arange(Dp, Dp + pad), jnp.arange(Dp, Dp + pad)].set(1.0)
-        gp = jnp.zeros((Dp + pad,), dtype).at[:Dp].set(gs)
-    else:
-        Hp, gp = Hs, gs
-    return Hp, gp, (s, freef, lmf, Hll_inv, Wr, g_l)
-
-
-def _damped_backsub(y, ctx):
-    """Phase B: unscale the reduced solution, back-substitute landmarks."""
-    s, freef, lmf, Hll_inv, Wr, g_l = ctx
-    Dp = s.shape[0]
+        Hs = jnp.zeros((Dp + pad, Dp + pad), dtype).at[:Dp, :Dp].set(Hs)
+        Hs = Hs.at[jnp.arange(Dp, Dp + pad),
+                   jnp.arange(Dp, Dp + pad)].set(1.0)
+        gs = jnp.zeros((Dp + pad,), dtype).at[:Dp].set(gs)
+    Lc = jnp.linalg.cholesky(Hs)
+    y = jax.scipy.linalg.cho_solve((Lc, True), gs)
     delta = y[:Dp] * s * freef
 
     # landmark back-substitution: δ_l = Hll⁻¹ (g_l − Wᵀ δ_p)
@@ -577,50 +562,11 @@ def _damped_backsub(y, ctx):
     return delta, delta_l, ok
 
 
-def _solve_damped(H, g, free, lam, H_ll, g_l, W, lm_free):
-    """Schur-reduced damped solve.
-
-    Dense part: (S·H_red·S + λI) y = S·g_red with Jacobi scaling S — the
-    float32-conditioning workhorse (SURVEY.md §7 'Double precision' risk).
-    Landmarks: per-slot 3×3 inverses of (H_ll + λ·diag(H_ll)), masked by
-    ``lm_free``; back-substituted after the reduced solve.
-    """
-    Hp, gp, ctx = _damped_reduced_system(H, g, free, lam, H_ll, g_l, W,
-                                         lm_free)
-    Lc = jnp.linalg.cholesky(Hp)
-    y = jax.scipy.linalg.cho_solve((Lc, True), gp)
-    return _damped_backsub(y, ctx)
-
-
-def solve_damped_batched(H, g, free, lam, H_ll, g_l, W, lm_free,
-                         backend: Optional[str] = None):
-    """Batched damped Schur solve over a leading batch axis.
-
-    ``backend='pallas'`` routes the padded SPD systems through the fused
-    batched Cholesky factor+solve kernel (ops/pallas_cholesky.py) — XLA's
-    batched ``cholesky`` is a serial loop over the batch (5.6 ms at B=32
-    for the flagship 640² system, 74% of this whole function); the kernel
-    factors the chunk simultaneously. 'xla' keeps the vmapped
-    cholesky+cho_solve. Default: pallas on TPU for B >= 8, else xla
-    (overridable with BEAM_SLAM_CHOL_BACKEND).
-
-    Every argument carries the leading batch axis."""
-    B = H.shape[0]
-    if backend is None:
-        backend = os.environ.get("BEAM_SLAM_CHOL_BACKEND", "")
-    if not backend:
-        backend = ("pallas" if jax.default_backend() == "tpu" and B >= 8
-                   else "xla")
-    if backend == "xla":
-        return jax.vmap(_solve_damped)(H, g, free, lam, H_ll, g_l, W,
-                                       lm_free)
-
-    from beam_slam_tpu.ops import pallas_cholesky as pc
-
-    Hp, gp, ctx = jax.vmap(_damped_reduced_system)(
-        H, g, free, lam, H_ll, g_l, W, lm_free)
-    y = pc.cholesky_solve_batched(Hp, gp)
-    return jax.vmap(_damped_backsub)(y, ctx)
+def solve_damped_batched(H, g, free, lam, H_ll, g_l, W, lm_free):
+    """Batched damped Schur solve over a leading batch axis (every argument
+    carries it): the vmapped :func:`_solve_damped`, whose batched Cholesky
+    and triangular solves XLA hands to the device's solver library."""
+    return jax.vmap(_solve_damped)(H, g, free, lam, H_ll, g_l, W, lm_free)
 
 
 def solve(
@@ -657,7 +603,7 @@ def marginal_pose_covariance(window, families, losses,
     """
     from beam_slam_tpu.core.window import IMU_DOF
 
-    H, g, H_ll, g_l, W, _ = _assemble(window, families, losses, "auto")
+    H, g, H_ll, g_l, W, _ = _assemble(window, families, losses, "scatter")
     dtype = H.dtype
     Dp = H.shape[0]
     L = H_ll.shape[0]
@@ -721,8 +667,8 @@ def lm_loop(window, assemble, n_iter, options: SolverOptions):
     # equations, retracts a trial, and assembles AT THE TRIAL — that single
     # pass yields both the trial cost (accept/reject decision) and, on
     # accept, the next iteration's normal equations. No separate
-    # residual-only pass (it cost ~as much as assembly on TPU: the factor
-    # math is small-op VPU work, the Jᵀ J matmuls are nearly free on MXU).
+    # residual-only pass (the factor math dominates assembly, so a
+    # residual-only pass costs almost as much as a full assembly).
     H0, g0, H_ll0, g_l0, W0, init_cost = assemble(window)
 
     def step(carry, _):

@@ -5,7 +5,7 @@ B-spline (basalt::Se3Spline<5>, bs_models/tests/imu_preintegration_tests.cpp:89-
 and samples exact angular velocity / body acceleration from it. Here we use a
 smooth analytic trajectory instead, with the *exact* derivatives obtained by
 JAX forward-mode autodiff — same role (C² ground truth with closed-form IMU
-measurements), TPU-native construction.
+measurements), built from JAX primitives.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Pinhole camera model with radial-tangential distortion.
 
-TPU-native replacement for the used subset of libbeam's
+JAX replacement for the used subset of libbeam's
 ``beam_calibration::CameraModel`` (reference call sites:
 bs_models/src/visual_odometry.cpp:426-430 — ``UndistortPixel``,
 ``BackProject``, ``ProjectPoint``). All ops are batched over leading dims.

@@ -1,6 +1,6 @@
 """Binary feature descriptors + matching.
 
-TPU-native replacement for the reference's ORB descriptor usage
+JAX replacement for the reference's ORB descriptor usage
 (VisualFeatureTracker extracts ORB descriptors —
 bs_models/src/visual_feature_tracker.cpp; VisualOdometry matches them during
 local-map search, and the ImageDatabase builds bag-of-words queries).

@@ -1,6 +1,6 @@
 """FAST corner detection with grid-cell spatial suppression.
 
-TPU-native replacement for the reference's detector stage
+JAX replacement for the reference's detector stage
 (VisualFeatureTracker uses beam_cv FASTSSC detection —
 bs_models/src/visual_feature_tracker.cpp; FAST corners + spatial suppression
 for even coverage). Fully vectorized over the image: the 16-point Bresenham

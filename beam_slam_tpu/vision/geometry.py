@@ -1,7 +1,7 @@
 """Multi-view geometry kernels: triangulation, essential-matrix RANSAC,
 batched PnP pose refinement.
 
-TPU-native replacements for the beam_cv utilities the reference drives
+JAX replacements for the beam_cv utilities the reference drives
 (SURVEY.md §1 L0): ``Triangulation::TriangulatePoint``
 (visual_odometry.cpp TriangulateLandmark :532), the essential-matrix RANSAC
 outlier gate on incoming tracks (visual_odometry.cpp:516-527), and

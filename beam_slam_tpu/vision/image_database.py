@@ -12,10 +12,10 @@ Vocabulary tiers:
 * random hyperplanes (default, zero training) — adequate for revisit
   detection on distinctive scenes;
 * **trained** (:func:`train_vocabulary`): binary k-means over corpus
-  descriptors — Hamming assignment via one ±1 matmul (MXU), centroid update
-  by per-bit majority vote — the flat-TPU counterpart of DBoW2's
+  descriptors — Hamming assignment via one ±1 matmul, centroid update
+  by per-bit majority vote — a flat counterpart of DBoW2's
   hierarchical-k-means descriptor clustering (a tree buys O(log) lookup on
-  a CPU; on TPU one [N,words] matmul + argmin is already a single fused
+  a CPU; on an accelerator one [N,words] matmul + argmin is a single
   kernel, so the hierarchy would only add latency).
 """
 
@@ -79,11 +79,11 @@ def _kmeans_binary(bits: jnp.ndarray, valid: jnp.ndarray, key,
 
     def step(centers, _):
         s_c = 2.0 * centers - 1.0
-        sim = s_x @ s_c.T                       # [N, K] MXU
+        sim = s_x @ s_c.T                       # [N, K]
         assign = jnp.argmax(sim, axis=1)
         oh = jax.nn.one_hot(assign, n_words, dtype=jnp.float32) * vf[:, None]
         counts = oh.sum(axis=0)                  # [K]
-        sums = oh.T @ bits                       # [K, B] MXU
+        sums = oh.T @ bits                       # [K, B]
         mean = sums / jnp.maximum(counts, 1.0)[:, None]
         new = jnp.where(counts[:, None] > 0, mean > 0.5, centers > 0.5)
         return new.astype(jnp.float32), None

@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade feature tracking.
 
-TPU-native replacement for the reference's KLT-style tracker
+JAX replacement for the reference's KLT-style tracker
 (beam_cv::Tracker driven by VisualFeatureTracker,
 bs_models/src/visual_feature_tracker.cpp — detector + descriptor + tracker
 producing per-landmark pixel tracks). Dense, regular compute: patches are

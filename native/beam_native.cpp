@@ -1,4 +1,4 @@
-// Native host-side kernels for the TPU SLAM pipeline.
+// Native host-side kernels for the SLAM pipeline.
 //
 // The reference runtime is C++ end to end; here the *device* compute path is
 // JAX/XLA and the host pipeline stays Python — except these per-scan ingest

@@ -1,11 +1,11 @@
-"""Regression guard for the round-3 TPU-session accuracy killer: with
+"""Regression guard for a session accuracy fault: with
 ``async_solve=True`` the double-buffered optimizer tick must still fan out
 every harvested graph update to the notify consumers (IMU-odometry rebasing,
 lidar scan-pose / registration-map updates, VO map updates) — the reference's
 ``notify(transaction, graph_clone)`` contract
 (bs_optimizers/src/fixed_lag_smoother.cpp:308).
 
-The round-3 bug: the async tick harvested solves without firing the notify
+The bug: the async tick harvested solves without firing the notify
 fan-out, so every model dead-reckoned on its seed trajectory and the session
 ATE degraded ~40x while every smoother-only async test stayed green. These
 tests exercise async_solve (and the device-resident pipelined registration
@@ -19,7 +19,7 @@ import pytest
 from beam_slam_tpu.pipeline.sim_session import run_synthetic_session
 
 # Reduced envelope keeps each session ~1 min on the 4-core CPU CI backend
-# (the full reference envelope runs in tools/run_tpu_session.py and the
+# (the full reference envelope runs in tools/run_session.py and the
 # gated tests of test_envelope_e2e.py).
 _ENV = dict(duration_s=8.0, lag_s=4.0, imu_hz=100.0, cam_hz=10.0,
             lidar_hz=5.0, max_states=48)
@@ -62,9 +62,9 @@ def test_async_solve_lvio_ate_parity():
 
 @pytest.mark.slow
 def test_async_plus_pipelined_registration_ate_parity():
-    """The full TPU-session fast path (async_solve + device-resident
-    pipelined scan-to-map registration) — exactly what
-    tools/run_tpu_session.py runs — must match the plain sync/host path."""
+    """The deployment fast path (async_solve + device-resident pipelined
+    scan-to-map registration) — exactly what tools/run_session.py runs —
+    must match the plain sync/host path."""
     sync = _run("LIO", async_solve=False, pipelined_registration=False)
     fast = _run("LIO", async_solve=True, pipelined_registration=True)
     assert fast.ate_rmse_m < max(2.5 * sync.ate_rmse_m, 0.06), (

@@ -89,7 +89,7 @@ def test_assert_shared_topology_rejects_mismatch(batch):
 
 
 def test_assemble_shared_fchunked_matches_unchunked(batch):
-    """Factor-axis-chunked assembly (the B=32 VMEM-spill fix) must produce
+    """Factor-axis-chunked assembly (f_chunk) must produce
     the same normal equations as the whole-family pass. f_chunk=16 forces
     chunking on the reprojection (F=64) and IDP (F=24) families here."""
     wins, fams = batch

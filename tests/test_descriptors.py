@@ -70,7 +70,7 @@ def test_image_database_recognizes_revisit(rng):
 
 
 def test_image_database_discriminates_revisits():
-    """Retrieval quality on nontrivial data (VERDICT r1 weak #9): 20 distinct
+    """Retrieval quality on nontrivial data: 20 distinct
     'places', each revisited with descriptor noise (5% bit flips + 20%
     outlier replacement). The database must rank the true place first for
     every noisy revisit — random-hyperplane BoW or not, it has to actually

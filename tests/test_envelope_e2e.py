@@ -1,4 +1,4 @@
-"""End-to-end sessions at the REFERENCE envelope (VERDICT r1 item 8):
+"""End-to-end sessions at the REFERENCE envelope:
 200 Hz IMU, 20 Hz camera, 10 Hz lidar, per-config lags from the reference
 YAMLs (lio.yaml:3 lag 4 s, lvio.yaml:3 lag 10 s), max_states 64. Asserts
 the ATE bound that docs/ATE.md records.

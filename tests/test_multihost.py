@@ -1,4 +1,4 @@
-"""Multi-host (DCN) tier: hybrid 2D mesh construction, owner-locality
+"""Multi-host tier: hybrid 2D mesh construction, owner-locality
 factor ordering, and the hierarchical coupled PGO solve — exercised on the
 8-virtual-device CPU backend folded into a 2-host × 4-chip topology
 (conftest forces --xla_force_host_platform_device_count=8)."""
@@ -52,9 +52,9 @@ def _ring_problem(N, seed=0, noise=0.05):
 
 def test_hybrid_mesh_shape():
     mesh = mh.make_hybrid_mesh(n_hosts=2, devices_per_host=4)
-    assert mesh.axis_names == (mh.HOST_AXIS, mh.ICI_AXIS)
+    assert mesh.axis_names == (mh.HOST_AXIS, mh.SHARD_AXIS)
     assert mesh.shape[mh.HOST_AXIS] == 2
-    assert mesh.shape[mh.ICI_AXIS] == 4
+    assert mesh.shape[mh.SHARD_AXIS] == 4
 
 
 def test_owner_assignment_keeps_chains_local():

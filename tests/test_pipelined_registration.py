@@ -275,7 +275,7 @@ def test_local_mapper_lio_session_pipelined():
     """Full LIO session through the LocalMapper with
     ``pipelined_registration=True``: init-map adoption, pipelined factors,
     flush at session end — ATE must match the sync path's bound (the
-    TPU-session configuration, tools/run_tpu_session.py)."""
+    deployment configuration, tools/run_session.py)."""
     from beam_slam_tpu.models.slam_initialization import InitParams
     from beam_slam_tpu.pipeline.config import LocalMapperConfig
     from beam_slam_tpu.pipeline.local_mapper import LocalMapper

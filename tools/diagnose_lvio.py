@@ -30,8 +30,7 @@ import jax  # noqa: E402
 
 if os.environ.get("JAX_PLATFORMS") == "cpu":
     # default: the deterministic CPU oracle backend; export
-    # JAX_PLATFORMS=tpu (etc.) to re-run the accuracy diagnosis on-chip
-    # (round-3 lesson: precision behaves differently on the TPU backend)
+    # JAX_PLATFORMS=cuda to re-run the accuracy diagnosis on the GPU
     jax.config.update("jax_platforms", "cpu")
 
 from beam_slam_tpu.utils import compile_cache  # noqa: E402
@@ -92,8 +91,8 @@ def main():
     ap.add_argument("--gravity-weight", type=float, default=None,
                     help="gravity information weight (reference: 10.0)")
     ap.add_argument("--async-solve", action="store_true",
-                    help="double-buffered async optimizer tick (the TPU "
-                    "session runtime)")
+                    help="double-buffered async optimizer tick (the "
+                    "deployment runtime)")
     ap.add_argument("--marg-cov", type=float, default=None,
                     help="override marginalization_prior_cov")
     ap.add_argument("--iters", type=int, default=None,
